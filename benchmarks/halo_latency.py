@@ -1,13 +1,13 @@
-"""Halo-mode crossover under REAL per-collective latency (VERDICT r4 #6).
+"""Halo-mode crossover under REAL per-collective latency.
 
-SCALING_r04 measured the single-process virtual CPU mesh, where a
-ppermute is a memcpy — there 'step' (one exchange per color step, ~17
-collectives/level/cycle) beats the ghost-strip modes ('overlap'/'sweep',
-~2/level/cycle) because the ghost modes pay extended redundant compute
-instead. The production default on TPU rests on the analytic prediction
+On the single-process virtual CPU mesh a ppermute is a memcpy — there
+'step' (one exchange per color step, ~17 collectives/level/cycle) beats the
+ghost-strip modes ('overlap'/'sweep', ~2/level/cycle) because the ghost
+modes pay extended redundant compute instead. The accelerator default
+('overlap', structured_dist.default_halo) rests on the analytic prediction
 that once each collective costs real latency, the count dominates.
 
-This experiment tests that prediction without a pod: each mesh "device"
+This experiment tests that prediction without several accelerators: each mesh "device"
 is its OWN process (jax.distributed over localhost gRPC), so every
 collective crosses a process boundary with genuine latency. Compares the
 same solver/mode matrix in-process (latency ~ 0) and cross-process
@@ -75,8 +75,8 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import time, jax.numpy as jnp
-from amg_tpu.models import poisson
-from amg_tpu.parallel.structured_dist import DistStructuredSolver
+from amg_jax.models import poisson
+from amg_jax.parallel.structured_dist import DistStructuredSolver
 solver = DistStructuredSolver({side}, n_devices={nproc},
                               dtype=jnp.float64, halo={mode!r})
 b2 = poisson.rhs({side}, dtype=jnp.float64).reshape({side}, {side})

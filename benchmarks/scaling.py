@@ -3,10 +3,9 @@ N >= 2 hosts, row-partitioned levels + halo exchange + agglomeration).
 
 Runs the distributed structured V-cycle at device counts 1..N on whatever
 mesh is available and reports per-device-count wall-clock and scaling
-efficiency vs the single-device run. On this round's hardware only one
-real chip exists (multi-chip numbers here come from the virtual CPU mesh
-and measure orchestration overhead, not ICI bandwidth); on a pod slice the
-same script produces the real scaling table.
+efficiency vs the single-device run. On the virtual CPU mesh the numbers
+measure orchestration overhead only; on a multi-GPU host the same script
+produces the real scaling table.
 
 Usage: python benchmarks/scaling.py [side]
 """
@@ -20,15 +19,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from amg_tpu.utils.cache import enable_persistent_cache
-enable_persistent_cache(str(__import__("pathlib").Path(__file__).resolve().parents[1] / ".jax_cache"))
+from amg_jax.utils.cache import enable_persistent_cache
+
+enable_persistent_cache()
 if os.environ.get("JAX_PLATFORMS") in ("cpu",):
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 
-from amg_tpu.models import poisson
-from amg_tpu.parallel.structured_dist import DistStructuredSolver
+from amg_jax.models import poisson
+from amg_jax.parallel.structured_dist import DistStructuredSolver
 
 
 def bench_devices(side: int, D: int, iters: int = 20,
@@ -51,9 +51,8 @@ def bench_devices(side: int, D: int, iters: int = 20,
 
 def bench_ell(D: int, n: int = 63, n_levels: int = 5, iters: int = 20,
               halo: str = "strips") -> float:
-    """ELL-path V-cycle time per halo mode (VERDICT r2 #5: the ghost-strip
-    one-exchange-per-sweep halo ported to the banded-window ELL path)."""
-    from amg_tpu.parallel.ell_dist import EllDistSolver
+    """ELL-path V-cycle time per halo mode."""
+    from amg_jax.parallel.ell_dist import EllDistSolver
 
     dtype = (jnp.float32 if jax.devices()[0].platform != "cpu"
              else jnp.float64)
@@ -87,9 +86,7 @@ def main():
         print(json.dumps({"scenario": "scaling", "side": side, **rows[-1]}),
               flush=True)
 
-    # halo-mode comparison at the largest device count (VERDICT round-1
-    # item 4: the measured win of one-exchange-per-sweep + overlap over the
-    # reference-style exchange-per-color-step)
+    # halo-mode comparison at the largest device count
     D = counts[-1]
     if D >= 2:
         for halo, fv in (("step", True), ("sweep", False),

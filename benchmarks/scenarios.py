@@ -24,8 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from amg_tpu.utils.cache import enable_persistent_cache
-enable_persistent_cache(str(__import__("pathlib").Path(__file__).resolve().parents[1] / ".jax_cache"))
+from amg_jax.utils.cache import enable_persistent_cache
+
+enable_persistent_cache()
 jax.config.update("jax_enable_x64", True)
 if os.environ.get("JAX_PLATFORMS") in ("cpu",):
     jax.config.update("jax_platforms", "cpu")
@@ -35,11 +36,14 @@ import numpy as np
 
 
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    dev = jax.devices()[0]
+    print(json.dumps(dict(kw, platform=dev.platform,
+                          device_kind=dev.device_kind,
+                          device_count=len(jax.devices()))), flush=True)
 
 
 def ref_testlib():
-    from amg_tpu import Multigrid, SparseGaussSeidel, poisson
+    from amg_jax import Multigrid, SparseGaussSeidel, poisson
 
     A, b = poisson.poisson2d(35)
     t0 = time.perf_counter()
@@ -51,7 +55,7 @@ def ref_testlib():
 
 
 def weighted_jacobi():
-    from amg_tpu import Multigrid, Jacobi, poisson
+    from amg_jax import Multigrid, Jacobi, poisson
 
     A, b = poisson.poisson2d(35)
     best = None
@@ -68,9 +72,9 @@ def weighted_jacobi():
 
 
 def large_multicolor():
-    from amg_tpu.models import poisson
-    from amg_tpu.sparse.stencil import color_masks, gs4_sweep_masked
-    from amg_tpu.structured import build_stencil_hierarchy_device
+    from amg_jax.models import poisson
+    from amg_jax.sparse.stencil import color_masks, gs4_sweep_masked
+    from amg_jax.structured import build_stencil_hierarchy_device
 
     side = int(os.environ.get("AMG_BENCH_SIDE", "1023"))
     hier = build_stencil_hierarchy_device(side)
@@ -91,21 +95,25 @@ def large_multicolor():
     jax.block_until_ready(u)
     t = (time.perf_counter() - t0) / 50
     nnz = int(np.count_nonzero(np.asarray(S.c)))
-    from amg_tpu.utils.profiling import Roofline
+    extra = {}
+    if jax.devices()[0].platform == "gpu":
+        from amg_jax.utils.profiling import peak_for
 
-    # const-stencil sweep traffic: 8 color steps x (read u, b; write u)
-    sol_s = 8 * 3 * side * side * 4 / (Roofline().hbm_gbps * 1e9)
+        # const-stencil sweep traffic: 8 color steps x (read u, b; write
+        # u) at the device's published bandwidth
+        roof = peak_for(jax.devices()[0].device_kind)
+        sol_s = 8 * 3 * side * side * 4 / (roof.hbm_gbps * 1e9)
+        extra["sol_pct"] = 100 * sol_s / t
     emit(scenario="large_multicolor", metric="sym_sweep_nnz_per_s",
-         value=round(2 * nnz / t / 1e9, 2), unit="Gnnz/s", side=side,
-         sweep_ms=round(t * 1e3, 3),
-         sol_pct=round(100 * sol_s / t, 1))
+         value=2 * nnz / t / 1e9, unit="Gnnz/s", side=side,
+         sweep_ms=t * 1e3, **extra)
 
 
 def rap_rebuild():
-    from amg_tpu.models import poisson
-    from amg_tpu.native import bindings
-    from amg_tpu.ops.rap import build_hierarchy_planes, poisson_planes
-    from amg_tpu.structured import max_levels_for_side
+    from amg_jax.models import poisson
+    from amg_jax.native import bindings
+    from amg_jax.ops.rap import build_hierarchy_planes, poisson_planes
+    from amg_jax.structured import max_levels_for_side
 
     side = int(os.environ.get("AMG_BENCH_SIDE", "1023"))
     L = max_levels_for_side(side)
@@ -123,7 +131,7 @@ def rap_rebuild():
     host_ms = None
     if bindings.available():
         import scipy.sparse as sp
-        from amg_tpu.ops.transfer import linear_interp_1d
+        from amg_jax.ops.transfer import linear_interp_1d
 
         t0 = time.perf_counter()
         mats = [poisson.laplacian_scipy(side)]
@@ -142,8 +150,8 @@ def rap_rebuild():
 
 
 def multihost_vcycle():
-    from amg_tpu.models import poisson
-    from amg_tpu.parallel.structured_dist import DistStructuredSolver
+    from amg_jax.models import poisson
+    from amg_jax.parallel.structured_dist import DistStructuredSolver
 
     side = int(os.environ.get("AMG_DIST_SIDE", "255"))
     D = len(jax.devices())
@@ -165,23 +173,20 @@ def multihost_vcycle():
 
 
 def var_jump():
-    """Variable-coefficient jump diffusion (VERDICT r4 #3): a = 100
+    """Variable-coefficient jump diffusion: a = 100
     inside the centered square, harmonic-mean faces, hierarchy Galerkin-
     coarsened ON DEVICE, solved with the auto var path (packed-var).
-    Size adapts to backend: 255 on a CPU run, 2047 on TPU. Tolerance is
-    the size's achievable absolute rss (non-pow2 coefficients floor the
-    defect correction at ~2^-44 * rss(b); docs/PERF.md r5)."""
-    from amg_tpu.models import poisson
-    from amg_tpu.models.varcoef import jump_planes
-    from amg_tpu.structured import StructuredSolver
+    Size adapts to backend: 255 on a CPU run, 2047 on a GPU. Tolerance is
+    the reference's absolute rss 1e-7."""
+    from amg_jax.models import poisson
+    from amg_jax.models.varcoef import jump_planes
+    from amg_jax.structured import StructuredSolver
 
-    on_tpu = jax.default_backend() == "tpu"
-    side = 2047 if on_tpu else 255
-    b2 = (poisson.rhs_device(side, dtype=jnp.float64)
-          if on_tpu else poisson.rhs(side, dtype=jnp.float64)
-          ).reshape(side, side)
-    solver = StructuredSolver(side, A_planes=jump_planes(side,
-                                                         a_in=100.0))
+    on_gpu = jax.default_backend() == "gpu"
+    side = 2047 if on_gpu else 255
+    b2 = poisson.rhs_device(side, dtype=jnp.float64).reshape(side, side)
+    solver = StructuredSolver(side, A_planes=jump_planes(
+        side, a_in=100.0, dtype=jnp.float64))
     tol = 1e-7
     u, stats = solver.solve_ir_device(b2, tolerance=tol)
     err_v, it_v = np.asarray(stats)  # warm + sync

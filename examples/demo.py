@@ -3,7 +3,7 @@ test/testlib.cpp:147-213): builds the 35x35 / 8-level Poisson problem,
 prints the level dof hierarchy, runs the standalone symmetric Gauss-Seidel
 solver and the AMG solver, and reports iteration counts + final rss.
 
-Run: python examples/demo.py        (CPU or TPU; f64)
+Run: python examples/demo.py        (CPU or GPU; f64)
 """
 
 import os
@@ -14,13 +14,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 jax.config.update("jax_enable_x64", True)
-# honor JAX_PLATFORMS even when a site plugin pre-registered a device
-if os.environ.get("JAX_PLATFORMS") in ("cpu",):
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 
-from amg_tpu import (LinearInterpolator, Multigrid, SparseGaussSeidel,
+from amg_jax import (LinearInterpolator, Multigrid, SparseGaussSeidel,
                      poisson, rss)
 
 

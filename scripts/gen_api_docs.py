@@ -3,7 +3,7 @@
 The reference ships a Doxygen build with private-member extraction and a
 gh-pages deploy (/root/reference/docs/CMakeLists.txt:1-13,
 .github/workflows/docs.yml:27-42). This is the dependency-free equivalent:
-walk the amg_tpu package with importlib/inspect and emit one markdown page
+walk the amg_jax package with importlib/inspect and emit one markdown page
 per module (classes, functions, signatures, docstrings) plus an index, for
 the docs workflow to publish.
 
@@ -59,12 +59,12 @@ def document_module(modname: str) -> str:
 
 
 def main(out_dir: str = "docs/api") -> list[str]:
-    import amg_tpu
+    import amg_jax
 
     os.makedirs(out_dir, exist_ok=True)
-    modnames = ["amg_tpu"]
-    for info in pkgutil.walk_packages(amg_tpu.__path__,
-                                      prefix="amg_tpu."):
+    modnames = ["amg_jax"]
+    for info in pkgutil.walk_packages(amg_jax.__path__,
+                                      prefix="amg_jax."):
         if ".native" in info.name:
             continue  # requires a compiled extension at import time
         modnames.append(info.name)
@@ -79,10 +79,10 @@ def main(out_dir: str = "docs/api") -> list[str]:
             f.write(text)
         written.append(fname)
     with open(os.path.join(out_dir, "index.md"), "w") as f:
-        f.write("# amg_tpu API reference\n\n")
+        f.write("# amg_jax API reference\n\n")
         f.write("Generated by `scripts/gen_api_docs.py`.\n\n")
         for fname in written:
-            mod = fname[:-3].replace("_", ".").replace("amg.tpu", "amg_tpu")
+            mod = fname[:-3].replace("_", ".").replace("amg.jax", "amg_jax")
             f.write(f"- [{mod}]({fname})\n")
     print(f"wrote {len(written) + 1} pages to {out_dir}")
     return written

@@ -5,7 +5,7 @@ them into a global mesh, so every collective (ppermute/psum/all_gather)
 crosses a real process boundary through the distributed runtime — genuine
 nonzero per-collective latency, unlike the single-process virtual mesh
 where a ppermute is a memcpy. This is the latency-injection experiment of
-VERDICT r4 #6: as per-collective cost grows, the collective-COUNT
+as per-collective cost grows, the collective-COUNT
 difference between halo modes (per level per sweep: 'step' pays one
 exchange per color step, the ghost-strip modes pay one per smooth) must
 dominate.
@@ -31,14 +31,14 @@ def main():
 
     pid, nproc, port, side, mode, iters = (
         int(a) if a.lstrip("-").isdigit() else a for a in sys.argv[1:7])
-    from amg_tpu.parallel.launch import initialize_distributed
+    from amg_jax.parallel.launch import initialize_distributed
 
     initialize_distributed(f"localhost:{port}", nproc, pid)
 
     import jax.numpy as jnp
 
-    from amg_tpu.models import poisson
-    from amg_tpu.parallel.structured_dist import DistStructuredSolver
+    from amg_jax.models import poisson
+    from amg_jax.parallel.structured_dist import DistStructuredSolver
 
     solver = DistStructuredSolver(side, n_devices=nproc,
                                   dtype=jnp.float64, halo=mode)

@@ -25,7 +25,7 @@ jax.config.update("jax_enable_x64", True)
 
 def main():
     pid, nproc, port = (int(a) for a in sys.argv[1:4])
-    from amg_tpu.parallel.launch import initialize_distributed
+    from amg_jax.parallel.launch import initialize_distributed
 
     info = initialize_distributed(f"localhost:{port}", nproc, pid)
     assert info["process_count"] == nproc, info
@@ -34,8 +34,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from amg_tpu.models import poisson
-    from amg_tpu.parallel.structured_dist import DistStructuredSolver
+    from amg_jax.models import poisson
+    from amg_jax.parallel.structured_dist import DistStructuredSolver
 
     side = 31
     D = info["global_devices"]
@@ -48,7 +48,7 @@ def main():
         u = solver.vcycle(u, b_pad)
         history.append(solver.rss(u, b_pad))
 
-    # full-FIELD equivalence across processes (VERDICT r4 weak #7): every
+    # full-FIELD equivalence across processes: every
     # process gathers the sharded iterate (its own shards are the only
     # addressable ones under jax.distributed — process_allgather is the
     # cross-host collective fetch) and checks it against the single-device
@@ -58,7 +58,7 @@ def main():
     u_full = np.asarray(
         multihost_utils.process_allgather(u, tiled=True))[:side, :side]
 
-    from amg_tpu.structured import build_stencil_hierarchy, solve_stencil
+    from amg_jax.structured import build_stencil_hierarchy, solve_stencil
 
     hier = build_stencil_hierarchy(side,
                                    n_levels=len(solver.cfg.sides),

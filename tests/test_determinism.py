@@ -1,4 +1,4 @@
-"""Determinism checks — the TPU-side analog of the reference's valgrind
+"""Determinism checks — the analog of the reference's valgrind
 memcheck CI (SURVEY.md §5): same inputs must give bitwise-identical
 results run-to-run."""
 
@@ -6,12 +6,12 @@ import jax
 import numpy as np
 import jax.numpy as jnp
 
-from amg_tpu.models import poisson
-from amg_tpu.multigrid import Multigrid
-from amg_tpu.ops.smoothers import MulticolorGaussSeidel
-from amg_tpu.structured import (build_stencil_hierarchy, solve_stencil,
+from amg_jax.models import poisson
+from amg_jax.multigrid import Multigrid
+from amg_jax.ops.smoothers import MulticolorGaussSeidel
+from amg_jax.structured import (build_stencil_hierarchy, solve_stencil,
                                 vcycle_stencil)
-from amg_tpu.utils.debugging import (assert_reproducible,
+from amg_jax.utils.debugging import (assert_reproducible,
                                      assert_shards_consistent)
 
 
@@ -42,7 +42,7 @@ def test_dist_solution_shards_consistent():
     (agglomerated) solve result must be identical on every device."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from amg_tpu.parallel.structured_dist import DistStructuredSolver
+    from amg_jax.parallel.structured_dist import DistStructuredSolver
 
     side = 31
     s = DistStructuredSolver(side, n_devices=8, dtype=jnp.float64)

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.parallel.structured_dist import (DistStructuredSolver,
+from amg_jax.models import poisson
+from amg_jax.parallel.structured_dist import (DistStructuredSolver,
                                               plan_distribution)
-from amg_tpu.structured import build_stencil_hierarchy, solve_stencil
+from amg_jax.structured import build_stencil_hierarchy, solve_stencil
 
 
 def test_eight_virtual_devices_available():
@@ -45,7 +45,7 @@ def test_dist_vcycle_matches_single_device(side):
     u_pad = jnp.zeros_like(b_pad)
     u_dist = solver.unpad(solver.vcycle(u_pad, b_pad))
 
-    from amg_tpu.structured import vcycle_stencil
+    from amg_jax.structured import vcycle_stencil
     u_single = vcycle_stencil(hier, jnp.zeros_like(b2), b2)
 
     np.testing.assert_allclose(np.asarray(u_dist), np.asarray(u_single),
@@ -132,8 +132,7 @@ def test_dist_overlap_halo_bitwise_matches_ghost_sweep():
 
 def test_dist_ghost_path_uses_fewer_collectives():
     """The ghost-strip V-cycle must lower to strictly fewer ppermutes than
-    the per-color-step variant (VERDICT round-1 item 4: <= 1 neighbor
-    exchange per sweep)."""
+    the per-color-step variant."""
     side = 63
     b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
     counts = {}
@@ -150,8 +149,8 @@ def test_dist_ghost_path_uses_fewer_collectives():
 def test_dist_solve_ir_reaches_reference_tolerance():
     """Distributed df32 defect correction hits the reference's 1e-9-grade
     rss (testlib.cpp:158) and matches the single-chip mixed-precision
-    solve (VERDICT round-1 item 5)."""
-    from amg_tpu.structured import StructuredSolver
+    solve."""
+    from amg_jax.structured import StructuredSolver
 
     side = 63
     b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
@@ -199,33 +198,6 @@ def test_dist_solve_ir_device_matches_host_loop():
                                np.asarray(res_host.u), rtol=0, atol=1e-9)
 
 
-def test_dist_rdma_halo_matches_ghost_sweep():
-    """VERDICT r2 #6: the RDMA ghost-strip mode (Pallas
-    make_async_remote_copy exchange, ops/pallas/halo.py) wired into the
-    production distributed sweep must reproduce the ppermute ghost-sweep
-    V-cycle exactly (interpret mode simulates the remote DMAs on the CPU
-    mesh)."""
-    side = 63
-    b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
-    us = {}
-    for halo in ("sweep", "rdma"):
-        s = DistStructuredSolver(side, n_devices=8, dtype=jnp.float64,
-                                 halo=halo)
-        bp = s.pad_field(b2)
-        us[halo] = np.asarray(s.unpad(s.vcycle(jnp.zeros_like(bp), bp)))
-    np.testing.assert_array_equal(us["sweep"], us["rdma"])
-
-
-def test_dist_rdma_solve_converges():
-    """End-to-end: the df32 distributed solve with RDMA halos reaches the
-    reference-grade tolerance."""
-    side = 63
-    b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
-    s = DistStructuredSolver(side, n_devices=8, halo="rdma")
-    res = s.solve_ir(b2, tolerance=1e-9)
-    assert res.converged and res.error <= 1e-9
-
-
 def test_dist_packed_halo_matches_ghost_sweep():
     """The color-packed distributed sweep (the distributed form of the
     production single-chip smoother) must reproduce the full-width
@@ -248,7 +220,7 @@ def test_dist_packed_halo_matches_ghost_sweep():
 
 
 def test_dist_var_ghost_sweep_matches_per_step_halo():
-    """VERDICT r3 #5: variable-coefficient levels must take the
+    """variable-coefficient levels must take the
     ghost-strip path too (coefficient-plane strips exchanged once,
     loop-invariant) — bitwise-equal iterates to the per-color-step
     exchange, for both 'sweep' and 'overlap' modes."""
@@ -295,8 +267,8 @@ def test_dist_pcg_matches_single_device():
     """Distributed device-resident PCG (psum'd inner products,
     preconditioned by the shard_map V-cycle) reproduces the single-device
     PCG: same iteration count, same iterates to fp-reassociation
-    tolerance (VERDICT r4 #4 equivalence contract)."""
-    from amg_tpu.krylov import solve_pcg_stencil
+    tolerance."""
+    from amg_jax.krylov import solve_pcg_stencil
 
     side = 31
     solver = DistStructuredSolver(side, n_devices=8, dtype=jnp.float64)

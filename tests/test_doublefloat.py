@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from amg_tpu.models import poisson
-from amg_tpu.ops.doublefloat import (DF32, df_add, df_add_f32, df_mul,
+from amg_jax.models import poisson
+from amg_jax.ops.doublefloat import (DF32, df_add, df_add_f32, df_mul,
                                      df_residual, df_rss, two_prod, two_sum)
-from amg_tpu.structured import StructuredSolver, build_fine_stencil_f64
+from amg_jax.structured import StructuredSolver, build_fine_stencil_f64
 
 
 def test_two_sum_exact():

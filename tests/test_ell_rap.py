@@ -6,13 +6,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.multigrid import (build_hierarchy, build_hierarchy_device,
+from amg_jax.models import poisson
+from amg_jax.multigrid import (build_hierarchy, build_hierarchy_device,
                                rebuild_hierarchy_values, solve)
-from amg_tpu.ops.ell_rap import apply_rap_chain, build_rap_plans
-from amg_tpu.ops.smoothers import MulticolorGaussSeidel
-from amg_tpu.ops.transfer import LinearInterpolator
-from amg_tpu.sparse.ell import ELL
+from amg_jax.ops.ell_rap import apply_rap_chain, build_rap_plans
+from amg_jax.ops.smoothers import MulticolorGaussSeidel
+from amg_jax.ops.transfer import LinearInterpolator
+from amg_jax.sparse.ell import ELL
 
 
 def _scipy_chain(A_sp, n_levels):
@@ -81,6 +81,6 @@ def test_rebuild_values_matches_fresh_build():
 
 
 def vstep(hier, sm, b):
-    from amg_tpu.multigrid import vcycle
+    from amg_jax.multigrid import vcycle
 
     return vcycle(hier, sm, jnp.zeros_like(b), b)

@@ -4,9 +4,9 @@ reference's plain V-cycle iteration)."""
 import numpy as np
 import jax.numpy as jnp
 
-from amg_tpu.krylov import solve_pcg_stencil
-from amg_tpu.models import poisson
-from amg_tpu.structured import build_stencil_hierarchy, solve_stencil
+from amg_jax.krylov import solve_pcg_stencil
+from amg_jax.models import poisson
+from amg_jax.structured import build_stencil_hierarchy, solve_stencil
 
 
 def test_pcg_converges_fewer_iterations():
@@ -38,8 +38,8 @@ def test_pcg_nonconvergence_reported():
 def test_pcg_device_matches_host_loop():
     """Device-resident PCG (one lax.while_loop dispatch) must walk the
     exact same iteration as the host-stepped debug loop."""
-    from amg_tpu.krylov import solve_pcg_device
-    from amg_tpu.structured import build_stencil_hierarchy_device
+    from amg_jax.krylov import solve_pcg_device
+    from amg_jax.structured import build_stencil_hierarchy_device
 
     side = 63
     hier = build_stencil_hierarchy_device(side, smoother="packed")
@@ -53,8 +53,8 @@ def test_pcg_device_matches_host_loop():
 
 
 def test_pcg_device_budget_exhaustion():
-    from amg_tpu.krylov import solve_pcg_device
-    from amg_tpu.structured import build_stencil_hierarchy_device
+    from amg_jax.krylov import solve_pcg_device
+    from amg_jax.structured import build_stencil_hierarchy_device
 
     side = 31
     hier = build_stencil_hierarchy_device(side, smoother="packed")

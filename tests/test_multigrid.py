@@ -7,11 +7,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.multigrid import Multigrid, build_hierarchy, solve, vcycle
-from amg_tpu.ops.smoothers import (MulticolorGaussSeidel, SparseGaussSeidel)
-from amg_tpu.ops.transfer import BilinearInterpolator2D, LinearInterpolator
-from amg_tpu.utils.metrics import rss
+from amg_jax.models import poisson
+from amg_jax.multigrid import Multigrid, build_hierarchy, solve, vcycle
+from amg_jax.ops.smoothers import (MulticolorGaussSeidel, SparseGaussSeidel)
+from amg_jax.ops.transfer import BilinearInterpolator2D, LinearInterpolator
+from amg_jax.utils.metrics import rss
 
 
 def test_invalid_every_gt_niters_raises():

@@ -2,7 +2,7 @@
 spawn N jax.distributed processes, each owning 2 virtual CPU devices, run
 the row-partitioned V-cycle over the 2N-device global mesh, and assert the
 rss trajectory matches the single-device solver. Exercises
-amg_tpu/parallel/launch.py end-to-end — the cross-host pattern the
+amg_jax/parallel/launch.py end-to-end — the cross-host pattern the
 reference (single-threaded C++) has no analog of."""
 
 import os

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from amg_tpu.models import poisson
-from amg_tpu.native import bindings
-from amg_tpu.ops.transfer import LinearInterpolator
-from amg_tpu.utils.coloring import greedy_coloring
+from amg_jax.models import poisson
+from amg_jax.native import bindings
+from amg_jax.ops.transfer import LinearInterpolator
+from amg_jax.utils.coloring import greedy_coloring
 
 
 pytestmark = pytest.mark.skipif(not bindings.available(),
@@ -76,7 +76,7 @@ def test_native_ell_pack_roundtrip():
 def test_native_seq_sgs_matches_reference_recurrence():
     """Native symmetric GS sweep equals the jax sequential-parity smoother."""
     import jax.numpy as jnp
-    from amg_tpu.ops.smoothers import SparseGaussSeidel
+    from amg_jax.ops.smoothers import SparseGaussSeidel
 
     n = 5
     A_sp = poisson.laplacian_scipy(n)
@@ -96,8 +96,8 @@ def test_native_seq_sgs_matches_reference_recurrence():
 def test_native_cpu_vcycle_reference_parity():
     """The native CPU AMG replica reproduces the reference's headline:
     35 V-cycles to rss ~ 7.19e-11 on the 1225-dof / 8-level case."""
-    from amg_tpu.models import poisson as P
-    from amg_tpu.ops.transfer import LinearInterpolator
+    from amg_jax.models import poisson as P
+    from amg_jax.ops.transfer import LinearInterpolator
 
     A = P.laplacian_scipy(35)
     b = np.asarray(P.rhs(35))

@@ -6,12 +6,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.sparse.packed import (gs4_sweep_packed, pack,
+from amg_jax.models import poisson
+from amg_jax.sparse.packed import (gs4_sweep_packed, pack,
                                    prolong_add_packed, residual_packed,
                                    restrict_packed, unpack)
-from amg_tpu.sparse.stencil import (Stencil2D, color_masks, gs4_sweep_masked)
-from amg_tpu.structured import (build_stencil_hierarchy, prolong_mm,
+from amg_jax.sparse.stencil import (Stencil2D, color_masks, gs4_sweep_masked)
+from amg_jax.structured import (build_stencil_hierarchy, prolong_mm,
                                 restrict_mm, vcycle_packed, vcycle_stencil)
 
 
@@ -93,7 +93,7 @@ def test_packed_vcycle_matches_stencil_vcycle(side):
 
 def test_packed_solver_converges_to_direct():
     side = 31
-    from amg_tpu.structured import StructuredSolver
+    from amg_jax.structured import StructuredSolver
 
     s = StructuredSolver(side, smoother="packed", device_setup=False,
                          packed_min_side=0)
@@ -110,8 +110,8 @@ def test_pack_rect_roundtrip_and_window_steps():
     """Rectangular slab packing + windowed packed steps (the distributed
     smoother's building blocks) agree with the full-width masked window
     steps of the structured distributed path."""
-    from amg_tpu.parallel.structured_dist import _masked_steps_const
-    from amg_tpu.sparse.packed import (pack_rect, packed_steps_window,
+    from amg_jax.parallel.structured_dist import _masked_steps_const
+    from amg_jax.sparse.packed import (pack_rect, packed_steps_window,
                                        unpack_rect)
 
     side = 21
@@ -153,7 +153,7 @@ def _variable_operator(side):
 def test_packed_var_sweep_matches_masked():
     """Variable-coefficient packed sweep (packed planes) == masked sweep
     on a genuinely variable operator."""
-    from amg_tpu.sparse.packed import gs4_sweep_packed_var, pack_planes
+    from amg_jax.sparse.packed import gs4_sweep_packed_var, pack_planes
 
     side = 31
     m = (side - 1) // 2
@@ -176,7 +176,7 @@ def test_packed_vcycle_variable_matches_and_solves():
     """vcycle_packed on a variable-coefficient hierarchy matches
     vcycle_stencil, and the packed solver converges to the direct
     solution."""
-    from amg_tpu.structured import StructuredSolver
+    from amg_jax.structured import StructuredSolver
 
     side = 31
     Avar = _variable_operator(side)

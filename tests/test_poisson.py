@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.sparse.ell import ELL
-from amg_tpu.utils.metrics import rss
+from amg_jax.models import poisson
+from amg_jax.sparse.ell import ELL
+from amg_jax.utils.metrics import rss
 
 
 def dense_laplacian_oracle(n):

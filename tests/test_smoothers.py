@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.ops.smoothers import (Jacobi, MulticolorGaussSeidel,
+from amg_jax.models import poisson
+from amg_jax.ops.smoothers import (Jacobi, MulticolorGaussSeidel,
                                    SparseGaussSeidel,
                                    SuccessiveOverRelaxation)
-from amg_tpu.utils.coloring import greedy_coloring, red_black_2d
+from amg_jax.utils.coloring import greedy_coloring, red_black_2d
 
 
 def tiny_problem():

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse as sp
 
-from amg_tpu.models import poisson
-from amg_tpu.ops.transfer import linear_interp_1d
-from amg_tpu.sparse.stencil import (Stencil2D, gs4_sweep, prolong,
+from amg_jax.models import poisson
+from amg_jax.ops.transfer import linear_interp_1d
+from amg_jax.sparse.stencil import (Stencil2D, gs4_sweep, prolong,
                                     restrict_fw)
-from amg_tpu.structured import (build_stencil_hierarchy, max_levels_for_side,
+from amg_jax.structured import (build_stencil_hierarchy, max_levels_for_side,
                                 solve_ir, solve_stencil, vcycle_stencil)
-from amg_tpu.utils.coloring import four_color_2d
+from amg_jax.utils.coloring import four_color_2d
 
 
 def test_stencil_from_scipy_roundtrip():
@@ -124,7 +124,7 @@ def test_structured_ir_reaches_f64_tolerance():
 
 def test_device_rap_matches_scipy():
     """Closed-form on-device Galerkin RAP equals host scipy R@(A@P)."""
-    from amg_tpu.ops.rap import rap_stencil_planes
+    from amg_jax.ops.rap import rap_stencil_planes
 
     for side in (7, 15, 31):
         A = poisson.laplacian_scipy(side)
@@ -140,7 +140,7 @@ def test_device_rap_matches_scipy():
 
 
 def test_device_rap_two_levels():
-    from amg_tpu.ops.rap import build_hierarchy_planes
+    from amg_jax.ops.rap import build_hierarchy_planes
 
     side = 15
     A = poisson.laplacian_scipy(side)
@@ -161,7 +161,7 @@ def test_device_rap_two_levels():
 
 
 def test_structured_solver_object():
-    from amg_tpu.structured import StructuredSolver
+    from amg_jax.structured import StructuredSolver
 
     side = 31
     solver = StructuredSolver(side)
@@ -173,7 +173,7 @@ def test_structured_solver_object():
 
 
 def test_structured_solver_fused_loop():
-    from amg_tpu.structured import StructuredSolver
+    from amg_jax.structured import StructuredSolver
 
     side = 31
     solver = StructuredSolver(side)
@@ -190,7 +190,7 @@ def test_structured_solver_fused_loop():
 
 def test_device_hierarchy_matches_host():
     """On-device hierarchy build == host scipy build (f64)."""
-    from amg_tpu.structured import build_stencil_hierarchy_device
+    from amg_jax.structured import build_stencil_hierarchy_device
 
     side = 31
     host = build_stencil_hierarchy(side, dtype=jnp.float64)
@@ -199,7 +199,7 @@ def test_device_hierarchy_matches_host():
     # device levels are plane-free (Stencil2D.const): compare the static
     # weights against the host build's detected ones, and one densified
     # level exactly
-    from amg_tpu.sparse.stencil import const_planes
+    from amg_jax.sparse.stencil import const_planes
 
     for a, b in zip(dev.levels, host.levels):
         assert a.w33 is not None and b.w33 is not None
@@ -223,7 +223,7 @@ def test_device_hierarchy_matches_host():
 def test_wcycle_matches_vcycle_semantics_and_converges():
     """gamma=1 cycle == vcycle; gamma=2 (W-cycle) converges at least as
     fast per iteration."""
-    from amg_tpu.structured import cycle_stencil
+    from amg_jax.structured import cycle_stencil
 
     side = 31
     hier = build_stencil_hierarchy(side, dtype=jnp.float64)
@@ -233,7 +233,7 @@ def test_wcycle_matches_vcycle_semantics_and_converges():
     c1 = cycle_stencil(hier, u0, b2, gamma=1)
     np.testing.assert_allclose(np.asarray(v1), np.asarray(c1), rtol=1e-14)
 
-    from amg_tpu.utils.metrics import rss_from_residual
+    from amg_jax.utils.metrics import rss_from_residual
     S = hier.levels[0]
     w1 = cycle_stencil(hier, u0, b2, gamma=2)
     ev = float(rss_from_residual(b2 - S.matvec2(v1)))
@@ -243,8 +243,8 @@ def test_wcycle_matches_vcycle_semantics_and_converges():
 
 def test_fmg_start_discretization_accurate():
     """One FMG pass lands far closer than a zero guess + one V-cycle."""
-    from amg_tpu.structured import fmg_stencil
-    from amg_tpu.utils.metrics import rss_from_residual
+    from amg_jax.structured import fmg_stencil
+    from amg_jax.utils.metrics import rss_from_residual
 
     side = 63
     hier = build_stencil_hierarchy(side, dtype=jnp.float64)
@@ -257,7 +257,7 @@ def test_fmg_start_discretization_accurate():
 
 
 def test_fmg_solver_converges_fewer_refines():
-    from amg_tpu.structured import StructuredSolver
+    from amg_jax.structured import StructuredSolver
 
     side = 31
     b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
@@ -278,8 +278,8 @@ def test_chebyshev_smoother_converges_faster_per_cycle():
     converge in no more cycles than symmetric four-color GS at half the
     smoothing passes per cycle."""
     import jax.numpy as jnp
-    from amg_tpu.models import poisson
-    from amg_tpu.structured import build_stencil_hierarchy, solve_stencil
+    from amg_jax.models import poisson
+    from amg_jax.structured import build_stencil_hierarchy, solve_stencil
 
     side = 63
     b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
@@ -298,8 +298,8 @@ def test_const_lam_max_bounds_spectrum():
     of D^-1 A on every level (dense eigenvalues, small case)."""
     import numpy as np
     import jax.numpy as jnp
-    from amg_tpu.structured import build_stencil_hierarchy
-    from amg_tpu.sparse.stencil import const_lam_max
+    from amg_jax.structured import build_stencil_hierarchy
+    from amg_jax.sparse.stencil import const_lam_max
 
     hier = build_stencil_hierarchy(31, dtype=jnp.float64)
     for S in hier.levels:
@@ -311,14 +311,14 @@ def test_const_lam_max_bounds_spectrum():
 
 
 def test_chebyshev_on_variable_coefficient_levels():
-    """VERDICT r2 #7: Chebyshev must work where the analytic bound can't —
+    """Chebyshev must work where the analytic bound can't —
     genuinely variable-coefficient levels (w33 is None), via the
     setup-time power-iteration lambda_max estimate stored per level."""
     import jax.numpy as jnp
     import numpy as np
     import scipy.sparse as sp
-    from amg_tpu.models import poisson
-    from amg_tpu.structured import build_stencil_hierarchy, solve_stencil
+    from amg_jax.models import poisson
+    from amg_jax.structured import build_stencil_hierarchy, solve_stencil
 
     side = 31
     A = poisson.laplacian_scipy(side).tocsr()
@@ -346,13 +346,13 @@ def test_chebyshev_on_variable_coefficient_levels():
 
 
 def test_poisson_planes_pair_with_const_w33():
-    """ADVICE r2: bench.py asserts poisson_const_w33 as the w33 of the
+    """bench.py asserts poisson_const_w33 as the w33 of the
     device-built poisson_planes without re-detecting; guard the pairing so
     drift between the two builders can't silently corrupt the fast path."""
     import numpy as np
     import jax.numpy as jnp
-    from amg_tpu.ops.rap import poisson_const_w33, poisson_planes
-    from amg_tpu.sparse.stencil import detect_const_stencil
+    from amg_jax.ops.rap import poisson_const_w33, poisson_planes
+    from amg_jax.sparse.stencil import detect_const_stencil
 
     for side in (7, 31):
         detected = detect_const_stencil(

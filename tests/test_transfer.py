@@ -4,9 +4,9 @@ print-only inspection, test/testlib.cpp:117-128) and Galerkin RAP checks."""
 import numpy as np
 import jax.numpy as jnp
 
-from amg_tpu.models import poisson
-from amg_tpu.multigrid import galerkin_rap, n_H_dofs_from_n_h_dofs
-from amg_tpu.ops.transfer import (BilinearInterpolator2D, LinearInterpolator,
+from amg_jax.models import poisson
+from amg_jax.multigrid import galerkin_rap, n_H_dofs_from_n_h_dofs
+from amg_jax.ops.transfer import (BilinearInterpolator2D, LinearInterpolator,
                                   linear_interp_1d)
 
 

@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from amg_tpu.models import poisson
-from amg_tpu.models.varcoef import jump_planes, jump_scipy
-from amg_tpu.ops.rap import poisson_planes
-from amg_tpu.sparse.stencil import Stencil2D
-from amg_tpu.structured import (StructuredSolver,
+from amg_jax.models import poisson
+from amg_jax.models.varcoef import jump_planes, jump_scipy
+from amg_jax.ops.rap import poisson_planes
+from amg_jax.sparse.stencil import Stencil2D
+from amg_jax.structured import (StructuredSolver,
                                 build_stencil_hierarchy_planes)
 
 
@@ -44,7 +44,7 @@ def test_device_rap_chain_matches_host_scipy():
     level of a jump-coefficient hierarchy."""
     import scipy.sparse as sp
 
-    from amg_tpu.ops.transfer import linear_interp_1d
+    from amg_jax.ops.transfer import linear_interp_1d
 
     side = 31
     c = jump_planes(side, a_in=100.0, dtype=jnp.float64)
@@ -71,7 +71,7 @@ def test_jump_solve_matches_direct():
     side = 31
     A = jump_scipy(side, a_in=100.0)
     s = StructuredSolver(side, A_planes=jump_planes(side, a_in=100.0))
-    assert s.smoother == "packed"  # auto rule below FUSED_MIN_SIDE
+    assert s.smoother == "packed"  # the auto rule
     b2 = poisson.rhs(side, dtype=jnp.float64).reshape(side, side)
     res = s.solve_ir_fused(b2, tolerance=1e-9)
     assert res.converged and res.error <= 1e-9
@@ -94,7 +94,7 @@ def test_moderate_anisotropy_converges():
 
 
 def test_var_hierarchy_checkpoint_roundtrip(tmp_path):
-    from amg_tpu.utils.checkpoint import (load_stencil_hierarchy,
+    from amg_jax.utils.checkpoint import (load_stencil_hierarchy,
                                           save_stencil_hierarchy)
 
     side = 31
